@@ -1,5 +1,6 @@
-"""Wall-clock to converge the bundled amre ind85 reference-AF run — the
-second BASELINE.md north-star number.  Prints one JSON line."""
+"""Wall-clock to converge the reference-AF run on the seeded 449-site x 85
+individual test cohort (the amre example's shape) — the second
+BASELINE.md north-star number.  Prints one JSON line."""
 
 from __future__ import annotations
 
@@ -10,26 +11,20 @@ import time
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
-DATA = pathlib.Path("/root/reference/data")
+DATA = pathlib.Path(__file__).resolve().parent.parent / "tests" / "data"
 
 
 def main():
-    import numpy as np
     import jax
-    import jax.numpy as jnp
 
-    np.asarray(jnp.ones(8).sum())  # session warmup
+    from wgsassign_jax.io.beagle import read_beagle
+    from wgsassign_jax.io.ids import read_ids
+    from wgsassign_jax.models.reference_af import estimate_reference_af
+    from wgsassign_jax.models.common import to_device
+    from wgsassign_jax.parallel.mesh import make_runtime
 
-    from wgsassign_tpu.io.beagle import read_beagle
-    from wgsassign_tpu.io.ids import read_ids
-    from wgsassign_tpu.models.reference_af import estimate_reference_af
-    from wgsassign_tpu.models.common import to_device
-    from wgsassign_tpu.parallel.mesh import make_runtime
-
-    beagle = read_beagle(
-        str(DATA / "amre.breeding.ind85.ds_2x.sites-filter.top_50_each.beagle.gz")
-    )
-    popmap = read_ids(str(DATA / "amre.breeding.ind85.reference_k5.IDs.txt"))
+    beagle = read_beagle(str(DATA / "breeding.ind85.beagle.gz"))
+    popmap = read_ids(str(DATA / "breeding.ind85.reference_k5.IDs.txt"))
     rt = make_runtime(jax.devices()[:1])
     cohort = to_device(beagle, rt)
     # warmup (compile)
@@ -40,7 +35,7 @@ def main():
         res = estimate_reference_af(beagle, popmap, cohort=cohort)
         best = min(best, time.perf_counter() - t0)
     print(json.dumps({
-        "metric": "amre_ind85_reference_af_wallclock",
+        "metric": "ind85_reference_af_wallclock",
         "value": round(best, 4),
         "unit": "s",
         "iters": [int(x) for x in res.iters],

@@ -64,15 +64,15 @@ def main():
 
     import numpy as np
 
-    from wgsassign_tpu._native import (
+    from wgsassign_jax._native import (
         open_beagle_stream,
         read_beagle_native,
         read_int_matrix_native,
     )
-    from wgsassign_tpu.io.beagle import _read_beagle_python
+    from wgsassign_jax.io.beagle import _read_beagle_python
 
     if not os.path.exists(args.beagle):
-        from wgsassign_tpu.io.synth import synth_beagle_file
+        from wgsassign_jax.io.synth import synth_beagle_file
 
         args.beagle = "/tmp/wgsa_parser_bench.beagle.gz"
         if not os.path.exists(args.beagle):

@@ -1,7 +1,7 @@
 """Multi-device / multi-process scaling-efficiency artifact (BASELINE.json's
 >= 85% target at >= 2 hosts).
 
-Real multi-chip hardware is not available in this environment, so the
+The
 measurement isolates what sharding can actually cost here: the collective
 and partitioning OVERHEAD.  All configurations run on the same physical
 host with the same total compute; devices are XLA virtual CPU devices and
@@ -13,7 +13,7 @@ overhead.  (On real multi-chip hardware the same program gains the extra
 chips' FLOPs/bandwidth; the overhead measured here is what would be
 subtracted from ideal speedup.)
 
-Three workloads (VERDICT r3 item 3 added the last two — they carry the
+Three workloads (the last two carry the
 most per-population/per-block host orchestration, the likeliest
 efficiency sink):
 
@@ -55,9 +55,9 @@ if nproc > 1:
     )
 sys.path.insert(0, sys.argv[6])
 import numpy as np
-from wgsassign_tpu.io.ids import population_map
-from wgsassign_tpu.models.common import DeviceCohort
-from wgsassign_tpu.parallel.mesh import (
+from wgsassign_jax.io.ids import population_map
+from wgsassign_jax.models.common import DeviceCohort
+from wgsassign_jax.parallel.mesh import (
     make_global_sites_array, make_runtime, process_row_range,
 )
 
@@ -78,7 +78,7 @@ sw = make_global_sites_array(rt, np.ones(hi - lo, np.float32), m)
 cohort = DeviceCohort(g0=g0, g1=g1, site_weight=sw, m_real=m, runtime=rt)
 
 if workload == "maf_em":
-    from wgsassign_tpu.ops.emmaf import em_maf_pops
+    from wgsassign_jax.ops.emmaf import em_maf_pops
 
     mem = rt.replicate(popmap.membership)
     pidx = rt.replicate(popmap.pop_index)
@@ -89,7 +89,7 @@ if workload == "maf_em":
         np.asarray(out[1])
 
 elif workload == "loo":
-    from wgsassign_tpu.models.loo import leave_one_out
+    from wgsassign_jax.models.loo import leave_one_out
 
     af = rng.uniform(0.05, 0.95, size=(m, k)).astype(np.float32)
 
@@ -101,7 +101,7 @@ elif workload == "loo":
         np.asarray(res.ll)
 
 elif workload == "zscore":
-    from wgsassign_tpu.models.zscore import reference_z_scores
+    from wgsassign_jax.models.zscore import reference_z_scores
 
     # allele depths whose GL triples track the combo mean exactly, so the
     # +-0.01 site filter keeps (nearly) all sites and the kept-site EMs
@@ -176,6 +176,7 @@ def _run_config_once(workload: str, nproc: int, ndev_per_proc: int, m: int,
              str(ndev_per_proc), port, str(REPO),
              str(m), str(n), str(k), str(iters)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            env=dict(os.environ, JAX_PLATFORMS="cpu"),  # virtual CPU ranks
         )
         for pid in range(nproc)
     ]

@@ -36,17 +36,17 @@ if os.environ.get("WGSA_COORDINATOR_ADDRESS"):
         num_processes=int(os.environ["WGSA_NUM_PROCESSES"]),
         process_id=int(os.environ["WGSA_PROCESS_ID"]),
     )
-from wgsassign_tpu.parallel.mesh import make_runtime
+from wgsassign_jax.parallel.mesh import make_runtime
 
 mode, path = sys.argv[1], sys.argv[2]
 rt = make_runtime()
 t0 = time.perf_counter()
 if mode == "stream":
-    from wgsassign_tpu.models.common import stream_to_device
+    from wgsassign_jax.models.common import stream_to_device
     cohort, meta, _ = stream_to_device(path, rt)
 else:
-    from wgsassign_tpu.io.beagle import read_beagle, read_beagle_sharded
-    from wgsassign_tpu.models.common import to_device
+    from wgsassign_jax.io.beagle import read_beagle, read_beagle_sharded
+    from wgsassign_jax.models.common import to_device
     src = (read_beagle_sharded(path, rt) if jax.process_count() > 1
            else read_beagle(path))
     cohort = to_device(src, rt)
@@ -82,6 +82,7 @@ def _run_mode(mode, path, nproc):
             WGSA_COORDINATOR_ADDRESS=f"localhost:{port}",
             WGSA_NUM_PROCESSES=str(nproc),
             WGSA_PROCESS_ID=str(i),
+            JAX_PLATFORMS="cpu",  # one process per card is not this bench
         )
         procs.append(subprocess.Popen(
             [sys.executable, "-c", CHILD.replace("__REPO__", repr(REPO)),
@@ -111,7 +112,7 @@ def main():
     path = args.file or f"/tmp/wgsa_synth_{args.m}x{args.n}.beagle.gz"
     if not os.path.exists(path):
         sys.path.insert(0, REPO)
-        from wgsassign_tpu.io.synth import synth_beagle_file
+        from wgsassign_jax.io.synth import synth_beagle_file
 
         print(f"generating {path} ({args.m} x {args.n})...", file=sys.stderr)
         t0 = time.time()

@@ -32,7 +32,7 @@ run_both() {  # name, then identical flags for both CLIs
   local name=$1; shift
   echo "== $name"
   WGSassign "$@" --out "$WORK/ref_$name"
-  python -m wgsassign_tpu.cli "$@" --out "$WORK/tpu_$name"
+  python -m wgsassign_jax.cli "$@" --out "$WORK/new_$name"
 }
 
 run_both refaf  --beagle "$BEAGLE" --pop_af_IDs "$IDS" --get_reference_af --ne_obs
@@ -48,23 +48,23 @@ def close(a, b, what, rtol=1e-4, atol=2e-3):
     np.testing.assert_allclose(a, b, rtol=rtol, atol=atol, err_msg=what)
     print(f"OK  {what}")
 
-close(np.load(f"{w}/ref_refaf.pop_af.npy"), np.load(f"{w}/tpu_refaf.pop_af.npy"),
+close(np.load(f"{w}/ref_refaf.pop_af.npy"), np.load(f"{w}/new_refaf.pop_af.npy"),
       "pop_af.npy", atol=2e-4)
 assert open(f"{w}/ref_refaf.pop_names.txt").read() == \
-       open(f"{w}/tpu_refaf.pop_names.txt").read()
+       open(f"{w}/new_refaf.pop_names.txt").read()
 print("OK  pop_names.txt")
-close(np.load(f"{w}/ref_refaf.ne_obs.npy"), np.load(f"{w}/tpu_refaf.ne_obs.npy"),
+close(np.load(f"{w}/ref_refaf.ne_obs.npy"), np.load(f"{w}/new_refaf.ne_obs.npy"),
       "ne_obs.npy")
-close(np.loadtxt(f"{w}/ref_refaf.ne_ind.txt"), np.loadtxt(f"{w}/tpu_refaf.ne_ind.txt"),
+close(np.loadtxt(f"{w}/ref_refaf.ne_ind.txt"), np.loadtxt(f"{w}/new_refaf.ne_ind.txt"),
       "ne_ind.txt")
 for name, f in (("loo", "pop_like_LOO.tsv"), ("loods", "pop_like_LOO_downsampled.tsv")):
     r = pd.read_csv(f"{w}/ref_{name}.{f}", sep="\t")
-    t = pd.read_csv(f"{w}/tpu_{name}.{f}", sep="\t")
+    t = pd.read_csv(f"{w}/new_{name}.{f}", sep="\t")
     assert list(r.columns) == list(t.columns)
     rv, tv = r.iloc[:, 2:].to_numpy(float), t.iloc[:, 2:].to_numpy(float)
     close(rv, tv, f)
     assert (rv.argmax(1) == tv.argmax(1)).all(); print(f"OK  {f} argmax")
-close(np.loadtxt(f"{w}/ref_plike.pop_like.txt"), np.loadtxt(f"{w}/tpu_plike.pop_like.txt"),
+close(np.loadtxt(f"{w}/ref_plike.pop_like.txt"), np.loadtxt(f"{w}/new_plike.pop_like.txt"),
       "pop_like.txt")
 print("\nAll reference-vs-engine comparisons passed.")
 PY

@@ -1,10 +1,14 @@
-"""Generate golden fixtures for the amre workflows from the oracle.
+"""Generate the seeded test fixtures and their golden outputs.
 
 Run from the repo root:  python tests/generate_goldens.py
 
-Writes tests/golden/*.npz plus synthetic allele-depth fixtures (the bundled
-data has no AD files; these are generated deterministically, correlated with
-the GLs so the z-score combo filters keep a realistic site fraction).
+Step 1 writes ``tests/data/``: a synthetic cohort with the shapes of the
+upstream amre example (449 sites x 85 breeding individuals in five
+reference populations of 14/20/15/23/13, a downsampled copy of 357 of
+those sites, and 34 nonbreeding individuals from three harvest sites of
+12/10/12), with the allele depths the GLs were computed from
+(``io/synth.py``).  Step 2 runs ``tests/oracle.py`` on them and writes
+``tests/golden/*.npz``.
 """
 
 from __future__ import annotations
@@ -18,61 +22,86 @@ sys.path.insert(0, str(pathlib.Path(__file__).parent))
 sys.path.insert(0, str(pathlib.Path(__file__).parent.parent))
 
 import oracle
-from wgsassign_tpu.io.beagle import filter_sites_to_common, read_beagle, to_legacy_matrix
-
-DATA = pathlib.Path("/root/reference/data")
-OUT = pathlib.Path(__file__).parent / "golden"
-OUT.mkdir(exist_ok=True)
-
-BREEDING = DATA / "amre.breeding.ind85.ds_2x.sites-filter.top_50_each.beagle.gz"
-BREEDING_SUBSET = (
-    DATA / "amre.breeding.ind85.ds_2x.sites-filter.top_50_each_subset_80percent_sites.beagle.gz"
+from conftest import (
+    BREEDING_AD,
+    BREEDING_BEAGLE,
+    BREEDING_IDS,
+    BREEDING_SUBSET_BEAGLE,
+    DATA_DIR,
+    NONBREEDING_AD,
+    NONBREEDING_BEAGLE,
+    NONBREEDING_IDS,
 )
-BREEDING_IDS = DATA / "amre.breeding.ind85.reference_k5.IDs.txt"
-NONBREEDING = DATA / "amre.nonbreeding.ind34.ds_2x.sites-filter.top_50_each.beagle.gz"
-NONBREEDING_IDS = DATA / "amre.nonbreeding.ind34.site.IDs.txt"
+from wgsassign_jax.io.beagle import filter_sites_to_common, read_beagle, to_legacy_matrix
+from wgsassign_jax.io.synth import population_afs, sample_reads, write_beagle
+
+OUT = pathlib.Path(__file__).parent / "golden"
+
+SEED = 20261016
+M_SITES = 449
+M_SUBSET = 357
+REFERENCE_POPS = {"Newfoundland": 14, "Northeast": 20, "Northwest": 15,
+                  "South": 23, "SouthDakota": 13}
+HARVEST_SITES = {"CO": 12, "MX": 10, "TR": 12}
+FST = 0.1
+MEAN_DEPTH = 2.0
+ERROR_RATE = 0.01
 
 NUM_PARTITIONS = 4
-AD_SEED = 20260817
 Z_THRESHOLD = 5
 
 
-def synth_allele_depths(L, seed, e=0.01, max_depth=12):
-    """Deterministic AD matrix [M, 2N] int32 consistent with the GLs.
+def _write_ids(path, labels):
+    with open(path, "w") as f:
+        for i, lab in enumerate(labels):
+            f.write(f"Ind{i}\t{lab}\n")
 
-    The bundled beagle GLs are normalized read likelihoods
-    ``P(R|g) ∝ (1-e)^Ar e^Aa, 0.5^D, e^Ar (1-e)^Aa`` with e≈0.01, so we
-    recover (Ar, Aa) per (site, individual) by nearest-triple inversion over
-    a depth grid.  This keeps combo-mean GLs within the reference z-score
-    pipeline's 0.01 tolerance, as for real ANGSD data.  ``seed`` unused
-    (kept for fixture provenance).
-    """
-    m, n2 = L.shape
-    n = n2 // 2
-    g0 = L[:, 0::2].astype(np.float64)
-    g1 = L[:, 1::2].astype(np.float64)
-    g2 = 1.0 - g0 - g1
-    combos = [(ar, aa) for d in range(max_depth + 1) for aa in range(d + 1) for ar in [d - aa]]
-    cand = np.empty((len(combos), 3))
-    for c, (ar, aa) in enumerate(combos):
-        t = np.array(
-            [(1 - e) ** ar * e**aa, 0.5 ** (ar + aa), e**ar * (1 - e) ** aa]
-        )
-        cand[c] = t / t.sum()
-    gl3 = np.stack([g0, g1, g2], axis=-1)  # [M, N, 3]
-    dist = np.abs(gl3[:, :, None, :] - cand[None, None, :, :]).sum(-1)  # [M,N,C]
-    best = dist.argmin(axis=-1)
-    combos = np.asarray(combos)
-    ar = combos[best][:, :, 0]
-    aa = combos[best][:, :, 1]
-    ad = np.empty((m, 2 * n), dtype=np.int32)
-    ad[:, 0::2] = ar
-    ad[:, 1::2] = aa
-    return ad
+
+def make_fixtures():
+    """Write the seeded cohort files under ``tests/data/``."""
+    rng = np.random.default_rng(SEED)
+    DATA_DIR.mkdir(exist_ok=True)
+    pops = list(REFERENCE_POPS)
+    pop_af = population_afs(M_SITES, len(pops), FST, rng)
+
+    # breeding panel: individuals in shuffled population order, so the LOO
+    # in-place AF quirk sees interleaved members
+    labels = np.repeat(pops, list(REFERENCE_POPS.values()))
+    labels = labels[rng.permutation(labels.size)]
+    pop_of = np.searchsorted(pops, labels)
+    gl, ad = sample_reads(pop_af, pop_of, rng, MEAN_DEPTH, ERROR_RATE)
+    write_beagle(str(BREEDING_BEAGLE), gl)
+    _write_ids(BREEDING_IDS, labels)
+    np.savetxt(BREEDING_AD, ad, fmt="%d")
+
+    # downsampled copy: a sorted 80% site subset, each read kept with
+    # probability 1/2 and the GLs recomputed from the thinned reads
+    keep = np.sort(rng.choice(M_SITES, size=M_SUBSET, replace=False))
+    major = rng.binomial(ad[keep, 0::2], 0.5)
+    minor = rng.binomial(ad[keep, 1::2], 0.5)
+    from wgsassign_jax.io.synth import _gl_table
+
+    table = _gl_table(int(max(major.max(), minor.max(), 1)), ERROR_RATE)
+    gl_ds = table[major, minor]
+    write_beagle(str(BREEDING_SUBSET_BEAGLE), gl_ds, sites=keep)
+
+    # nonbreeding cohort: each harvest site draws its individuals'
+    # source populations from its own mixture
+    harvest = np.repeat(list(HARVEST_SITES), list(HARVEST_SITES.values()))
+    mix = rng.dirichlet(np.ones(len(pops)), size=len(HARVEST_SITES))
+    site_of = np.searchsorted(list(HARVEST_SITES), harvest)
+    src = np.array([rng.choice(len(pops), p=mix[s]) for s in site_of])
+    gl_nb, ad_nb = sample_reads(pop_af, src, rng, MEAN_DEPTH, ERROR_RATE)
+    write_beagle(str(NONBREEDING_BEAGLE), gl_nb)
+    _write_ids(NONBREEDING_IDS, harvest)
+    np.savetxt(NONBREEDING_AD, ad_nb, fmt="%d")
 
 
 def main():
-    breeding = read_beagle(str(BREEDING))
+    print("[0/7] seeded fixtures ...")
+    make_fixtures()
+    OUT.mkdir(exist_ok=True)
+    breeding = read_beagle(str(BREEDING_BEAGLE))
     L = to_legacy_matrix(breeding)
     ids = np.loadtxt(BREEDING_IDS, delimiter="\t", dtype=str)
     labels = ids[:, 1]
@@ -82,7 +111,7 @@ def main():
     np.savez(OUT / "ref_af.npz", af=af, pops=pops)
 
     print("[2/7] assignment log-likelihoods (nonbreeding) ...")
-    nonbreeding = read_beagle(str(NONBREEDING))
+    nonbreeding = read_beagle(str(NONBREEDING_BEAGLE))
     L_nb = to_legacy_matrix(nonbreeding)
     ll_nb = oracle.assign_ll(L_nb, af)
     np.savez(OUT / "pop_like.npz", ll=ll_nb, pops=pops)
@@ -96,7 +125,7 @@ def main():
     )
 
     print("[4/7] LOO with downsampled beagle ...")
-    subset = read_beagle(str(BREEDING_SUBSET))
+    subset = read_beagle(str(BREEDING_SUBSET_BEAGLE))
     b_f = filter_sites_to_common(breeding, subset.site_names)
     s_f = filter_sites_to_common(subset, b_f.site_names)
     assert b_f.site_names == s_f.site_names
@@ -120,8 +149,7 @@ def main():
     np.savez(OUT / "ne.npz", f_obs=f_obs, ne_obs=ne_obs, ne_ind=ne_ind)
 
     print("[6/7] z-scores ...")
-    ad_b = synth_allele_depths(L, AD_SEED)
-    np.savetxt(OUT / "breeding_ad.txt.gz", ad_b, fmt="%d")
+    ad_b = np.loadtxt(BREEDING_AD, dtype=np.int32)
     z_ref = np.empty(L.shape[1] // 2, dtype=np.float32)
     loci_ref = np.empty(L.shape[1] // 2, dtype=np.int32)
     for i in range(L.shape[1] // 2):
@@ -132,8 +160,7 @@ def main():
         OUT / "zscore_reference.npz", z=z_ref, loci=loci_ref, threshold=Z_THRESHOLD
     )
 
-    ad_nb = synth_allele_depths(L_nb, AD_SEED + 1)
-    np.savetxt(OUT / "nonbreeding_ad.txt.gz", ad_nb, fmt="%d")
+    ad_nb = np.loadtxt(NONBREEDING_AD, dtype=np.int32)
     assigned = pops[np.argmax(ll_nb, axis=1)]
     np.savetxt(
         OUT / "nonbreeding_assigned_ids.txt",

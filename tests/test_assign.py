@@ -2,7 +2,7 @@ import numpy as np
 
 from conftest import GOLDEN_DIR
 
-from wgsassign_tpu.models.assign import assignment_loglikelihoods
+from wgsassign_jax.models.assign import assignment_loglikelihoods
 
 
 def test_pop_like_matches_golden(nonbreeding):
@@ -48,9 +48,9 @@ def test_debug_checks_catch_malformed_gl():
     import pytest
     from jax.experimental.checkify import JaxRuntimeError
 
-    from wgsassign_tpu.io.beagle import BeagleData
-    from wgsassign_tpu.models.assign import assignment_loglikelihoods
-    from wgsassign_tpu.parallel.mesh import make_runtime
+    from wgsassign_jax.io.beagle import BeagleData
+    from wgsassign_jax.models.assign import assignment_loglikelihoods
+    from wgsassign_jax.parallel.mesh import make_runtime
 
     rng = np.random.default_rng(5)
     m, n, k = 32, 4, 2

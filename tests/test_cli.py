@@ -8,15 +8,17 @@ import pandas as pd
 import pytest
 
 from conftest import (
+    BREEDING_AD,
     BREEDING_BEAGLE,
     BREEDING_IDS,
     BREEDING_SUBSET_BEAGLE,
     GOLDEN_DIR,
+    NONBREEDING_AD,
     NONBREEDING_BEAGLE,
     NONBREEDING_IDS,
 )
 
-from wgsassign_tpu.cli import main
+from wgsassign_jax.cli import main
 
 
 def run_cli(tmp_path, *flags):
@@ -143,7 +145,7 @@ def test_zscore_workflows(tmp_path):
         "--beagle", BREEDING_BEAGLE,
         "--pop_af_IDs", BREEDING_IDS,
         "--pop_names", tmp_path / "pops.txt",
-        "--ind_ad_file", GOLDEN_DIR / "breeding_ad.txt.gz",
+        "--ind_ad_file", BREEDING_AD,
         "--allele_count_threshold", thr,
         "--get_reference_z_score",
         "--ind_start", 0, "--ind_end", 5,
@@ -158,7 +160,7 @@ def test_zscore_workflows(tmp_path):
         "--pop_af_IDs", GOLDEN_DIR / "nonbreeding_assigned_ids.txt",
         "--pop_af_file", tmp_path / "af.npy",
         "--pop_names", tmp_path / "pops.txt",
-        "--ind_ad_file", GOLDEN_DIR / "nonbreeding_ad.txt.gz",
+        "--ind_ad_file", NONBREEDING_AD,
         "--allele_count_threshold", thr,
         "--get_assignment_z_score",
         "--ind_end", 6,
@@ -207,7 +209,7 @@ def test_ind_start_zero_accepted(tmp_path):
         "--pop_af_IDs", GOLDEN_DIR / "nonbreeding_assigned_ids.txt",
         "--pop_af_file", tmp_path / "af.npy",
         "--pop_names", tmp_path / "pops.txt",
-        "--ind_ad_file", GOLDEN_DIR / "nonbreeding_ad.txt.gz",
+        "--ind_ad_file", NONBREEDING_AD,
         "--allele_count_threshold", 5,
         "--get_assignment_z_score",
         "--ind_start", 0, "--ind_end", 2,
@@ -219,8 +221,8 @@ def test_ind_start_zero_accepted(tmp_path):
 def test_threads_flag_reaches_native_parser(tmp_path, monkeypatch):
     """--threads must be forwarded to the native Beagle parser
     (docs/migration.md documents it as the host parser thread cap)."""
-    import wgsassign_tpu._native as native
-    from wgsassign_tpu.io.beagle import _read_beagle_python
+    import wgsassign_jax._native as native
+    from wgsassign_jax.io.beagle import _read_beagle_python
 
     seen = {}
 
@@ -242,7 +244,7 @@ def test_threads_flag_reaches_native_parser(tmp_path, monkeypatch):
 def test_zscore_error_rate_flag(tmp_path, monkeypatch):
     """--zscore_error_rate reaches the combo-table builder (the reference
     hard-codes e=0.01, WGSassign.py:350,430)."""
-    import wgsassign_tpu.models.zscore as zs
+    import wgsassign_jax.models.zscore as zs
 
     seen = {}
     real_build = zs.build_combo_tables
@@ -261,7 +263,7 @@ def test_zscore_error_rate_flag(tmp_path, monkeypatch):
         "--pop_af_IDs", GOLDEN_DIR / "nonbreeding_assigned_ids.txt",
         "--pop_af_file", tmp_path / "af.npy",
         "--pop_names", tmp_path / "pops.txt",
-        "--ind_ad_file", GOLDEN_DIR / "nonbreeding_ad.txt.gz",
+        "--ind_ad_file", NONBREEDING_AD,
         "--allele_count_threshold", 5,
         "--get_assignment_z_score",
         "--ind_end", 2,
@@ -286,3 +288,25 @@ def test_mixture_single_row_ids(tmp_path):
     assert em[0] == "CO"
     pi = em[1:].astype(float)
     assert pi.shape == (ll.shape[1],) and np.isfinite(pi).all()
+
+
+def test_em_checkpoint_requires_loo(tmp_path):
+    """--em_checkpoint checkpoints the LOO EM only; without --loo it would
+    do nothing, so it is rejected instead of silently ignored."""
+    with pytest.raises(ValueError, match="requires --loo"):
+        run_cli(tmp_path, "--beagle", BREEDING_BEAGLE,
+                "--pop_af_IDs", BREEDING_IDS, "--get_reference_af",
+                "--em_checkpoint")
+
+
+def test_em_checkpoint_loo_workflow(tmp_path):
+    """With --loo the LOO checkpoints are written, used and removed; the
+    outputs match a run without checkpoints."""
+    out = run_cli(tmp_path, "--beagle", BREEDING_BEAGLE,
+                  "--pop_af_IDs", BREEDING_IDS, "--get_reference_af", "--loo",
+                  "--em_checkpoint")
+    loo_golden = np.load(GOLDEN_DIR / "loo.npz")
+    df = pd.read_csv(str(out) + ".pop_like_LOO.tsv", sep="\t")
+    np.testing.assert_allclose(df.iloc[:, 2:].to_numpy(), loo_golden["ll"],
+                               rtol=1e-5, atol=2e-3)
+    assert not list(tmp_path.glob("*.ckpt*"))

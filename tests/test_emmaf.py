@@ -3,7 +3,7 @@ import pytest
 
 from conftest import GOLDEN_DIR
 
-from wgsassign_tpu.models.reference_af import estimate_reference_af
+from wgsassign_jax.models.reference_af import estimate_reference_af
 
 
 def test_reference_af_matches_golden(breeding, breeding_ids):
@@ -36,8 +36,8 @@ def test_em_fixed_point_synthetic():
     gl[:, :, 0] = np.where(geno == 0, 1 - e, e / 2)
     gl[:, :, 1] = np.where(geno == 1, 1 - e, e / 2)
 
-    from wgsassign_tpu.io.beagle import BeagleData
-    from wgsassign_tpu.io.ids import population_map
+    from wgsassign_jax.io.beagle import BeagleData
+    from wgsassign_jax.io.ids import population_map
 
     data = BeagleData(gl, [f"i{j}" for j in range(n)], [f"s{j}" for j in range(m)])
     pm = population_map(data.sample_names, ["P"] * n)
@@ -47,7 +47,7 @@ def test_em_fixed_point_synthetic():
 
 
 def test_pop_count_mismatch_raises(breeding):
-    from wgsassign_tpu.io.ids import population_map
+    from wgsassign_jax.io.ids import population_map
 
     pm = population_map(["a", "b"], ["X", "Y"])
     with pytest.raises(ValueError, match="do not match"):

@@ -7,7 +7,7 @@ pins the blocked-f32→f64 scheme against a true NumPy float64 reduction.
 import numpy as np
 import jax.numpy as jnp
 
-from wgsassign_tpu.ops.loglik import (
+from wgsassign_jax.ops.loglik import (
     _pick_block,
     assign_loglik,
     assign_loglik_f64,

@@ -2,7 +2,7 @@ import numpy as np
 
 from conftest import GOLDEN_DIR
 
-from wgsassign_tpu.models.ne import effective_sample_sizes
+from wgsassign_jax.models.ne import effective_sample_sizes
 
 
 def test_ne_matches_golden(breeding, breeding_ids):

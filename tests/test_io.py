@@ -3,12 +3,12 @@ import gzip
 import numpy as np
 import pytest
 
-from wgsassign_tpu.io.beagle import (
+from wgsassign_jax.io.beagle import (
     filter_sites_to_common,
     read_beagle,
     to_legacy_matrix,
 )
-from wgsassign_tpu.io.ids import population_map, read_ids
+from wgsassign_jax.io.ids import population_map, read_ids
 
 from conftest import BREEDING_BEAGLE, BREEDING_IDS, BREEDING_SUBSET_BEAGLE
 
@@ -84,8 +84,8 @@ def test_ragged_beagle_rows(tmp_path):
 
 
 def test_native_loader_matches_python():
-    from wgsassign_tpu._native import read_beagle_native
-    from wgsassign_tpu.io.beagle import _read_beagle_python
+    from wgsassign_jax._native import read_beagle_native
+    from wgsassign_jax.io.beagle import _read_beagle_python
 
     native = read_beagle_native(str(BREEDING_BEAGLE))
     if native is None:
@@ -97,7 +97,7 @@ def test_native_loader_matches_python():
 
 
 def test_native_loader_malformed(tmp_path):
-    from wgsassign_tpu._native import read_beagle_native
+    from wgsassign_jax._native import read_beagle_native
 
     if read_beagle_native(str(BREEDING_BEAGLE)) is None:
         pytest.skip("native loader unavailable")
@@ -111,7 +111,7 @@ def test_native_loader_malformed(tmp_path):
 
 def test_native_loader_plain_text(tmp_path):
     """zlib's gzopen reads uncompressed files transparently too."""
-    from wgsassign_tpu._native import read_beagle_native
+    from wgsassign_jax._native import read_beagle_native
 
     if read_beagle_native(str(BREEDING_BEAGLE)) is None:
         pytest.skip("native loader unavailable")
@@ -126,7 +126,7 @@ def test_native_loader_plain_text(tmp_path):
 
 
 def test_row_range_reading(breeding):
-    from wgsassign_tpu.io.beagle import read_beagle as rb
+    from wgsassign_jax.io.beagle import read_beagle as rb
 
     part = rb(str(BREEDING_BEAGLE), row_range=(100, 140))
     assert part.n_sites == 40
@@ -138,8 +138,8 @@ def test_row_range_reading(breeding):
 
 
 def test_native_row_range_matches_python():
-    from wgsassign_tpu._native import read_beagle_native
-    from wgsassign_tpu.io.beagle import _read_beagle_python
+    from wgsassign_jax._native import read_beagle_native
+    from wgsassign_jax.io.beagle import _read_beagle_python
 
     native = read_beagle_native(str(BREEDING_BEAGLE), row_range=(100, 140))
     if native is None:
@@ -155,7 +155,7 @@ def test_native_row_range_matches_python():
 
 
 def test_beagle_dims():
-    from wgsassign_tpu.io.beagle import beagle_dims
+    from wgsassign_jax.io.beagle import beagle_dims
 
     assert beagle_dims(str(BREEDING_BEAGLE)) == (449, 85)
     assert beagle_dims(str(BREEDING_BEAGLE), use_native=False) == (449, 85)
@@ -167,9 +167,10 @@ def test_beagle_dims_cache(tmp_path, monkeypatch):
     full decompression scan pass."""
     import shutil
 
-    from wgsassign_tpu.io import beagle as bg
+    from wgsassign_jax.io import beagle as bg
 
-    monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path / "cache"))
+    cache = str(tmp_path / "cache" / "beagle_dims.json")
+    monkeypatch.setattr(bg, "_dims_cache_path", lambda: cache)
     path = tmp_path / "dims.beagle.gz"
     shutil.copy(BREEDING_BEAGLE, path)
     assert bg.beagle_dims(str(path)) == (449, 85)
@@ -181,7 +182,7 @@ def test_beagle_dims_cache(tmp_path, monkeypatch):
     assert bg.beagle_dims(str(path)) == (449, 85)
     # append a data row -> size/mtime change -> cache miss and rescan
     monkeypatch.undo()
-    monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path / "cache"))
+    monkeypatch.setattr(bg, "_dims_cache_path", lambda: cache)
     import gzip as _gz
 
     with _gz.open(path, "rb") as f:
@@ -193,14 +194,14 @@ def test_beagle_dims_cache(tmp_path, monkeypatch):
 
 
 def test_disjoint_site_intersection_raises():
-    from wgsassign_tpu.io.beagle import site_intersection_masks
+    from wgsassign_jax.io.beagle import site_intersection_masks
 
     with pytest.raises(ValueError, match="No common sites"):
         site_intersection_masks(["a_1", "a_2"], ["b_1", "b_2"])
 
 
 def test_read_pop_names_single_row(tmp_path):
-    from wgsassign_tpu.io.ids import read_pop_names
+    from wgsassign_jax.io.ids import read_pop_names
 
     p = tmp_path / "one.pop_names.txt"
     p.write_text("OnlyPop\n")
@@ -213,7 +214,7 @@ def test_read_pop_names_single_row(tmp_path):
 
 
 def test_allele_depth_dim_validation(tmp_path):
-    from wgsassign_tpu.io.ad import read_allele_depths
+    from wgsassign_jax.io.ad import read_allele_depths
 
     p = tmp_path / "ad.txt"
     np.savetxt(p, np.ones((5, 6), dtype=np.int32), fmt="%d")
@@ -232,8 +233,8 @@ def test_allele_depth_dim_validation(tmp_path):
 def test_native_ad_reader_matches_loadtxt(tmp_path):
     """The native int tokenizer (ad_read) must reproduce np.loadtxt on
     plain and gzipped AD matrices, including negatives and blank lines."""
-    from wgsassign_tpu._native import _get_lib
-    from wgsassign_tpu.io.ad import read_allele_depths
+    from wgsassign_jax._native import _get_lib
+    from wgsassign_jax.io.ad import read_allele_depths
 
     if _get_lib() is None:
         pytest.skip("native library unavailable")
@@ -259,7 +260,7 @@ def test_native_ad_reader_matches_loadtxt(tmp_path):
 
 
 def test_native_ad_reader_rejects_malformed(tmp_path):
-    from wgsassign_tpu._native import _get_lib, read_int_matrix_native
+    from wgsassign_jax._native import _get_lib, read_int_matrix_native
 
     if _get_lib() is None:
         pytest.skip("native library unavailable")
@@ -281,7 +282,7 @@ def test_hashed_site_intersection_matches_string_masks():
     """The hash-based intersection (O(M)*8B host memory) must produce the
     exact keep masks of the string-set version on the bundled amre pair."""
     from conftest import BREEDING_BEAGLE, BREEDING_SUBSET_BEAGLE
-    from wgsassign_tpu.io.beagle import (
+    from wgsassign_jax.io.beagle import (
         scan_site_hashes,
         scan_site_names,
         site_intersection_masks,
@@ -300,7 +301,7 @@ def test_hashed_site_intersection_matches_string_masks():
 
 
 def test_hashed_site_intersection_errors():
-    from wgsassign_tpu.io.beagle import site_intersection_masks_hashed
+    from wgsassign_jax.io.beagle import site_intersection_masks_hashed
 
     a = np.array([1, 2, 3], dtype=np.uint64)
     with pytest.raises(ValueError, match="disjoint"):

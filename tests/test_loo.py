@@ -3,9 +3,9 @@ import pytest
 
 from conftest import GOLDEN_DIR
 
-from wgsassign_tpu.io.beagle import filter_sites_to_common, read_beagle
-from wgsassign_tpu.models.loo import leave_one_out, loo_af_column_index
-from wgsassign_tpu.models.reference_af import estimate_reference_af
+from wgsassign_jax.io.beagle import filter_sites_to_common, read_beagle
+from wgsassign_jax.models.loo import leave_one_out, loo_af_column_index
+from wgsassign_jax.models.reference_af import estimate_reference_af
 
 from conftest import BREEDING_SUBSET_BEAGLE
 
@@ -62,10 +62,47 @@ def test_loo_af_column_index_compat(breeding_ids):
 
 
 def test_loo_small_pop_raises(breeding):
-    from wgsassign_tpu.io.ids import population_map
+    from wgsassign_jax.io.ids import population_map
 
     labels = ["A"] + ["B"] * 84
     pm = population_map([f"i{j}" for j in range(85)], labels)
     af = np.full((449, 2), 0.5, np.float32)
     with pytest.raises(ValueError, match="requires >= 2"):
         leave_one_out(breeding, af, pm)
+
+
+def test_loo_checkpoint_resume(breeding, breeding_ids, tmp_path, monkeypatch):
+    """Crash the LOO driver after two populations; the resumed run must skip
+    their EMs via the per-population done files and land on identical
+    results, then clean up every checkpoint file."""
+    import glob
+
+    import wgsassign_jax.models.loo as loo_mod
+
+    af = np.load(GOLDEN_DIR / "ref_af.npz")["af"]
+    full = loo_mod.leave_one_out(breeding, af, breeding_ids)
+    ckpt = str(tmp_path / "loo.ckpt")
+    orig = loo_mod._loo_group_em
+    calls = []
+
+    def crashing(*a, **kw):
+        if len(calls) == 2:
+            raise RuntimeError("simulated crash")
+        calls.append(1)
+        return orig(*a, **kw)
+
+    monkeypatch.setattr(loo_mod, "_loo_group_em", crashing)
+    with pytest.raises(RuntimeError, match="simulated crash"):
+        loo_mod.leave_one_out(
+            breeding, af, breeding_ids, checkpoint_path=ckpt
+        )
+    assert len(glob.glob(ckpt + ".pop*.done.npz")) == 2
+    monkeypatch.setattr(loo_mod, "_loo_group_em", orig)
+    res = loo_mod.leave_one_out(
+        breeding, af, breeding_ids, checkpoint_path=ckpt
+    )
+    np.testing.assert_array_equal(res.iters, full.iters)
+    np.testing.assert_array_equal(res.converged, full.converged)
+    np.testing.assert_allclose(res.ll, full.ll, rtol=0, atol=0)
+    np.testing.assert_allclose(res.parts, full.parts, rtol=0, atol=0)
+    assert not glob.glob(ckpt + "*")

@@ -2,7 +2,7 @@ import numpy as np
 
 from conftest import GOLDEN_DIR, NONBREEDING_IDS
 
-from wgsassign_tpu.models.mixture import em_mixture, format_mixture_output, mcmc_mixture
+from wgsassign_jax.models.mixture import em_mixture, format_mixture_output, mcmc_mixture
 
 
 def _inputs():

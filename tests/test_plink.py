@@ -1,6 +1,6 @@
 import numpy as np
 
-from wgsassign_tpu.io.plink import read_plink_bed
+from wgsassign_jax.io.plink import read_plink_bed
 
 
 def _write_plink(tmp_path, geno):
@@ -48,7 +48,7 @@ def test_allele_counts_cli(tmp_path):
     """The AD preprocessing tool (reference allele_counts_beagle.py)."""
     import gzip
 
-    from wgsassign_tpu.io.ad import main as ad_main
+    from wgsassign_jax.io.ad import main as ad_main
 
     m, n = 4, 3
     rng = np.random.default_rng(1)

@@ -55,7 +55,7 @@ def _zscore_bruteforce(g0k, g1k, a, depths, combos, mean_gl, read_probs):
 def test_zscore_sums_vs_bruteforce():
     import jax.numpy as jnp
 
-    from wgsassign_tpu.ops.zscore_ops import zscore_sums
+    from wgsassign_jax.ops.zscore_ops import zscore_sums
 
     rng = np.random.default_rng(7)
     max_d = 3
@@ -126,7 +126,7 @@ def _em_scalar(g0, g1, max_iter, tol):
 def test_em_maf_pops_vs_scalar_loop():
     import jax.numpy as jnp
 
-    from wgsassign_tpu.ops.emmaf import em_maf_pops
+    from wgsassign_jax.ops.emmaf import em_maf_pops
 
     rng = np.random.default_rng(3)
     m, n = 17, 6
@@ -154,9 +154,9 @@ def test_em_maf_pops_vs_scalar_loop():
 # ---------------------------------------------------------------------------
 
 def test_beagle_fuzz_roundtrip(tmp_path):
-    from wgsassign_tpu._native import read_beagle_native
-    from wgsassign_tpu.io.beagle import _read_beagle_python
-    from wgsassign_tpu.io.synth import write_beagle
+    from wgsassign_jax._native import read_beagle_native
+    from wgsassign_jax.io.beagle import _read_beagle_python
+    from wgsassign_jax.io.synth import write_beagle
 
     rng = np.random.default_rng(11)
     for trial, (m, n) in enumerate([(1, 1), (7, 3), (64, 17)]):
@@ -178,7 +178,7 @@ def test_beagle_non_normalized_triples(tmp_path):
     """GL triples that do not sum to 1 are preserved as-is: the reader keeps
     (g0, g1) verbatim (reference reader_cy.pyx:62-66 drops the 3rd column
     without checking normalization)."""
-    from wgsassign_tpu.io.beagle import _read_beagle_python
+    from wgsassign_jax.io.beagle import _read_beagle_python
 
     p = tmp_path / "unnorm.beagle.gz"
     with gzip.open(p, "wt") as f:
@@ -192,14 +192,14 @@ def test_beagle_fuzz_range_and_stream(tmp_path):
     """Fuzz the windowed and streamed readers: random row windows of both
     parsers and the native block stream must reproduce slices of the full
     parse; the site-name scan must match the parsed names."""
-    from wgsassign_tpu._native import open_beagle_stream, read_beagle_native
-    from wgsassign_tpu.io.beagle import (
+    from wgsassign_jax._native import open_beagle_stream, read_beagle_native
+    from wgsassign_jax.io.beagle import (
         _read_beagle_python,
         read_beagle,
         scan_site_names,
     )
-    from wgsassign_tpu.io.stream import open_block_iterator
-    from wgsassign_tpu.io.synth import write_beagle
+    from wgsassign_jax.io.stream import open_block_iterator
+    from wgsassign_jax.io.synth import write_beagle
 
     rng = np.random.default_rng(23)
     for trial, (m, n) in enumerate([(5, 2), (41, 7), (128, 3)]):
@@ -237,7 +237,7 @@ def test_beagle_stream_malformed_mid_file(tmp_path):
     native stream (not silently truncate the cohort)."""
     import pytest
 
-    from wgsassign_tpu._native import open_beagle_stream
+    from wgsassign_jax._native import open_beagle_stream
 
     p = tmp_path / "ragged.beagle.gz"
     with gzip.open(p, "wt") as f:

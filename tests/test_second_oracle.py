@@ -8,8 +8,8 @@ import math
 
 import numpy as np
 
-from wgsassign_tpu.io.beagle import BeagleData
-from wgsassign_tpu.io.ids import population_map
+from wgsassign_jax.io.beagle import BeagleData
+from wgsassign_jax.io.ids import population_map
 
 
 def _synth(m, n, seed):
@@ -83,7 +83,7 @@ def _loo_serial_reference(g0, g1, labels, af_full, max_iter, tol):
 def test_loo_vs_serial_reference_loop():
     """Batched device LOO (incl. the order-dependent in-place-AF compat
     semantics) vs a from-scratch serial loop on a 3-pop case."""
-    from wgsassign_tpu.models.loo import leave_one_out
+    from wgsassign_jax.models.loo import leave_one_out
 
     m, n = 17, 9
     g0, g1 = _synth(m, n, seed=5)
@@ -118,7 +118,7 @@ def test_loo_column_index_hand_enumerated():
     processing order 0,1,2 (pop a), 3,4 (pop b).  When individual i is
     evaluated against pop j, the AF bank row must be the *last-processed*
     pop-j member's LOO column, or the full-data column if none yet."""
-    from wgsassign_tpu.models.loo import loo_af_column_index
+    from wgsassign_jax.models.loo import loo_af_column_index
 
     labels = np.array(["a", "a", "a", "b", "b"])
     popmap = population_map([f"I{i}" for i in range(5)], labels)
@@ -193,7 +193,7 @@ def _fisher_ind_scalar(g0, g1, af, labels, pops):
 def test_fisher_vs_serial_reference_loop():
     import jax.numpy as jnp
 
-    from wgsassign_tpu.ops.fisher import fisher_obs_pops
+    from wgsassign_jax.ops.fisher import fisher_obs_pops
 
     m, n = 23, 7
     g0, g1 = _synth(m, n, seed=9)
@@ -234,7 +234,7 @@ def _em_mix_scalar(ll, n_iter):
 
 
 def test_mixture_vs_reference_fixed_point():
-    from wgsassign_tpu.models.mixture import em_mixture
+    from wgsassign_jax.models.mixture import em_mixture
 
     rng = np.random.default_rng(13)
     # feasible (pre-scaled) log-likelihoods, the regime where the

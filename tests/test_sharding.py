@@ -6,11 +6,11 @@ import jax
 import numpy as np
 import pytest
 
-from wgsassign_tpu.models.assign import assignment_loglikelihoods
-from wgsassign_tpu.models.loo import leave_one_out
-from wgsassign_tpu.models.ne import effective_sample_sizes
-from wgsassign_tpu.models.reference_af import estimate_reference_af
-from wgsassign_tpu.parallel.mesh import make_runtime
+from wgsassign_jax.models.assign import assignment_loglikelihoods
+from wgsassign_jax.models.loo import leave_one_out
+from wgsassign_jax.models.ne import effective_sample_sizes
+from wgsassign_jax.models.reference_af import estimate_reference_af
+from wgsassign_jax.parallel.mesh import make_runtime
 
 from conftest import GOLDEN_DIR
 

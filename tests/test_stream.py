@@ -4,12 +4,12 @@ must bit-match the in-memory path, through to CLI-level outputs."""
 import numpy as np
 import pytest
 
-from conftest import BREEDING_BEAGLE, BREEDING_IDS, GOLDEN_DIR
+from conftest import BREEDING_AD, BREEDING_BEAGLE, BREEDING_IDS, GOLDEN_DIR
 
-from wgsassign_tpu.io.beagle import read_beagle
-from wgsassign_tpu.io.stream import open_block_iterator
-from wgsassign_tpu.models.common import stream_to_device, to_device
-from wgsassign_tpu.parallel.mesh import make_runtime
+from wgsassign_jax.io.beagle import read_beagle
+from wgsassign_jax.io.stream import open_block_iterator
+from wgsassign_jax.models.common import stream_to_device, to_device
+from wgsassign_jax.parallel.mesh import make_runtime
 
 
 @pytest.mark.parametrize("use_native", [True, False])
@@ -50,7 +50,7 @@ def test_streamed_cohort_bitmatches_in_memory(use_native):
 
 def test_streamed_cli_reference_af_and_loo(tmp_path):
     """Full --get_reference_af --loo via --stream_ingest matches goldens."""
-    from wgsassign_tpu.cli import main
+    from wgsassign_jax.cli import main
 
     out = tmp_path / "run"
     main([
@@ -80,7 +80,7 @@ def test_streamed_cli_zscore_matches_golden(tmp_path):
     carve-out lifted)."""
     import numpy as np
 
-    from wgsassign_tpu.cli import main
+    from wgsassign_jax.cli import main
 
     golden = np.load(GOLDEN_DIR / "zscore_reference.npz")
     out = tmp_path / "run"
@@ -89,7 +89,7 @@ def test_streamed_cli_zscore_matches_golden(tmp_path):
         "--beagle", str(BREEDING_BEAGLE),
         "--pop_af_IDs", str(BREEDING_IDS),
         "--pop_names", str(BREEDING_IDS),
-        "--ind_ad_file", str(GOLDEN_DIR / "breeding_ad.txt.gz"),
+        "--ind_ad_file", str(BREEDING_AD),
         "--allele_count_threshold", str(int(golden["threshold"])),
         "--get_reference_z_score",
         "--ind_start", "0", "--ind_end", "4",
@@ -110,7 +110,7 @@ def test_streamed_cli_downsampled_loo_matches_golden(tmp_path):
     import pandas as pd
 
     from conftest import BREEDING_SUBSET_BEAGLE
-    from wgsassign_tpu.cli import main
+    from wgsassign_jax.cli import main
 
     golden = np.load(GOLDEN_DIR / "loo_downsampled.npz")
     out = tmp_path / "run"
@@ -144,7 +144,7 @@ def test_python_fallback_row_window_skips_blank_lines(tmp_path):
 
     import numpy as np
 
-    from wgsassign_tpu.io.stream import open_block_iterator
+    from wgsassign_jax.io.stream import open_block_iterator
 
     path = tmp_path / "blank.beagle.gz"
     header = "marker\tallele1\tallele2\tI0\tI0\tI0\n"

@@ -1,10 +1,10 @@
 import numpy as np
 import pytest
 
-from conftest import GOLDEN_DIR
+from conftest import BREEDING_AD, GOLDEN_DIR, NONBREEDING_AD
 
-from wgsassign_tpu.io.ad import read_allele_depths
-from wgsassign_tpu.models.zscore import (
+from wgsassign_jax.io.ad import read_allele_depths
+from wgsassign_jax.models.zscore import (
     FilteringError,
     assignment_z_scores,
     build_combo_tables,
@@ -14,12 +14,12 @@ from wgsassign_tpu.models.zscore import (
 
 @pytest.fixture(scope="module")
 def breeding_ad():
-    return read_allele_depths(str(GOLDEN_DIR / "breeding_ad.txt.gz"))
+    return read_allele_depths(str(BREEDING_AD))
 
 
 @pytest.fixture(scope="module")
 def nonbreeding_ad():
-    return read_allele_depths(str(GOLDEN_DIR / "nonbreeding_ad.txt.gz"))
+    return read_allele_depths(str(NONBREEDING_AD))
 
 
 def test_reference_z_matches_golden(breeding, breeding_ids, breeding_ad):
@@ -129,7 +129,7 @@ def test_compact_zsums_match_legacy():
     on random combo tables."""
     import jax.numpy as jnp
 
-    from wgsassign_tpu.ops.zscore_ops import (
+    from wgsassign_jax.ops.zscore_ops import (
         zscore_sums_batch,
         zscore_sums_batch_compact,
     )
@@ -170,9 +170,9 @@ def test_compact_zsums_match_legacy():
 def test_assignment_af_dim_validation(breeding, breeding_ids):
     """A misaligned --pop_af_file must fail loudly, not gather pad values
     into silently wrong z-scores (round-4 review finding)."""
-    from wgsassign_tpu.models.zscore import assignment_z_scores
+    from wgsassign_jax.models.zscore import assignment_z_scores
 
-    ad = read_allele_depths(str(GOLDEN_DIR / "breeding_ad.txt.gz"))
+    ad = read_allele_depths(str(BREEDING_AD))
     ref = np.load(GOLDEN_DIR / "ref_af.npz", allow_pickle=True)
     af_short = ref["af"][:100]
     with pytest.raises(ValueError, match="covers 100 sites"):
@@ -186,3 +186,21 @@ def test_assignment_af_dim_validation(breeding, breeding_ids):
             breeding, ad, breeding_ids.pop_labels, af_narrow, ref["pops"],
             0, 2, 0, False,
         )
+
+
+def test_reference_zscore_sharded_matches_golden(breeding, breeding_ids):
+    """reference_z_scores on the 8-device mesh takes the shard-local
+    LOO-subset EM and still hits the goldens."""
+    import jax
+
+    from wgsassign_jax.parallel.mesh import make_runtime
+
+    golden = np.load(GOLDEN_DIR / "zscore_reference.npz")
+    thr = int(golden["threshold"])
+    ad = read_allele_depths(str(BREEDING_AD))
+    rt = make_runtime(jax.devices())
+    assert rt.n_devices == 8
+    res = reference_z_scores(
+        breeding, ad, breeding_ids, 0, 5, thr, False, runtime=rt
+    )
+    np.testing.assert_allclose(res.z, golden["z"][:5], rtol=2e-3, atol=2e-3)
